@@ -1,10 +1,10 @@
-"""End-to-end perception -> plan pipeline benchmark on TPU.
+"""End-to-end perception -> plan pipeline benchmark on a GPU.
 
 Measures the FULL per-object pipeline the reference drivers run on CPU
 (/root/reference/examples/pybullet_gto_planning.py:175-295):
 
   phase 1 "checking": depth image -> two SDF cost fields on the workspace
-      grid (scene + target-free obstacle; MXU-tiled min-distance +
+      grid (scene + target-free obstacle; brute-force min-distance +
       eps-band shaping, the KD-tree replacement) + the batched gripper
       collision pre-filter over the grasp set      [reference: 0.60 s/obj]
   phase 2 "ik": the whole grasp set as one vmapped multistart
@@ -32,7 +32,6 @@ the default — the e2e block lands in the bench result JSON).
 
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -52,7 +51,8 @@ def run_e2e(robot_name: str = None):
     # plan-phase flavor follows each robot's validated bench default
     # (closed-loop sweeps in results/synthetic_r4): panda 3 iterations
     # coarse 2+1 single-pass final_trust; fetch 6 coarse 3+3 with the
-    # evaluated finish (trust failed its shelf sweep — docs/PERF.md).
+    # evaluated finish (trust failed its shelf sweep — PERF.md, carried
+    # findings).
     # Round-up coarse division gives the validated splits
     # 3 -> 2+1 / 4 -> 2+2 / 6 -> 3+3.
     iterations = int(
@@ -60,25 +60,23 @@ def run_e2e(robot_name: str = None):
     )
     # IK screen budget: for panda, 24 LM iterations keeps the per-goal
     # found rate within 0.02 of the 50-iteration reference-parity budget
-    # (0.844 vs 0.863, tools/probe_ik_phase.py) at 55% of the cost;
-    # misses are exactly what the plan gate + rescue tier absorb. The
-    # 15-DoF fetch screen is harder (found 0.627 at 24 iters -> plan-gate
-    # reach 0.875) and keeps the full 50 (docs/PERF.md round-6 e2e).
+    # (0.844 vs 0.863, tools/probe_ik_phase.py); misses are exactly what
+    # the plan gate + rescue tier absorb. 16 iterations broke the plan-gate
+    # reach (0.812). The 15-DoF fetch screen is harder (found 0.627 at 24
+    # iters -> plan-gate reach 0.875) and keeps the full 50 (PERF.md,
+    # carried findings).
     ik_iterations = int(
         os.environ.get("BENCH_E2E_IK_ITERS", "24" if robot_name == "panda" else "50")
     )
     ik_seeds = int(os.environ.get("BENCH_E2E_SEEDS", "8"))
     # warm-start ranking fidelity: score seed trajectories on every
     # rank_t-th step x every rank_p-th surface point (SoA FK path). The
-    # full ranking is 24.4 ms/object — 70% of the IK phase — while (2,2)
-    # scores 6.5 ms with 15/16 identical seed picks (the one difference a
+    # full ranking scores every (T, P) replay point of every candidate;
+    # (2,2) keeps 15/16 identical seed picks (the one difference a
     # near-tie, full-metric cost excess 4e-4); ranking is a heuristic
     # seed CHOICE, the solver still optimizes the true objective.
-    # (4,4) ships: identical seed picks on the probe set and the measured
-    # e2e run holds every gate at strict reach 1.0 (ik 11.7 -> 8.0
-    # ms/object; docs/PERF.md round-6 e2e block). The IK screen stays at
-    # 24 iterations — 16 lifts throughput past 50 obj/s but breaks the
-    # plan-gate reach to 0.812 (negative result, same block).
+    # (4,4) ships: identical seed picks on the probe set, and the e2e run
+    # holds every gate at strict reach 1.0 (PERF.md, carried findings).
     rank_t = int(os.environ.get("BENCH_E2E_RANK_T", "4"))
     rank_p = int(os.environ.get("BENCH_E2E_RANK_P", "4"))
     coarse_iterations = int(
@@ -202,10 +200,9 @@ def run_e2e(robot_name: str = None):
     # (the pipeline's batched per-goal rescue, planning/pipeline.py:327-377,
     # with a static budget instead of the host's data-dependent trigger)
     # panda k=1: the exact-field strict reach is 1.0 before rescue (the
-    # round-6 precision fix), so one slot covers the measured worst case
-    # with gates green at 44.4 objects/s (k=2 remains the conservative
-    # knob, ~2 ms/object). fetch keeps k=2 — its gates need both slots
-    # (strict reach 1.0 at 19.1 objects/s, docs/PERF.md round-6 e2e).
+    # exact-distance fix), so one slot covers the measured worst case
+    # (k=2 remains the conservative knob). fetch keeps k=2 — its gates
+    # need both slots (PERF.md, carried findings).
     rescue_k = int(
         os.environ.get("BENCH_E2E_RESCUE", "1" if robot_name == "panda" else "2")
     )
@@ -240,8 +237,7 @@ def run_e2e(robot_name: str = None):
     # field_downsample accuracy bar). Default 1 cm; 0 = full-cloud build.
     # The fused builder also replaces the scene field's second full-cloud
     # pass with min(d_obstacle, d_target-points) — together this cuts the
-    # field build's distance pairs ~3.7x at res 160 (and ~10x at 320),
-    # docs/PERF.md round-5 fields-kernel work.
+    # field build's distance pairs ~3.7x at res 160 (and ~10x at 320).
     dedup_voxel = float(os.environ.get("BENCH_E2E_DEDUP", "0.01"))
     cap_obs = int(os.environ.get("BENCH_E2E_DEDUP_CAP", "12288"))
     cap_tgt = 2048
@@ -558,11 +554,8 @@ def run_e2e(robot_name: str = None):
 
 
 if __name__ == "__main__":
-    import jax
+    from grasptrajopt_tpu.utils.device import enable_compile_cache, require_gpu
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
-    except Exception:
-        pass
+    require_gpu(allow_requested_cpu=True)
+    enable_compile_cache()
     print(json.dumps({"e2e": run_e2e()}))

@@ -7,7 +7,7 @@ collision when >5 points have sdf < 0 (:219-237). Aggregation (:248-269)
 is shared with the pure scorer in grasptrajopt_tpu.utils.results, which
 also works without a simulator.
 
-TPU redesign: the 50-step x ~1.2k-point collision recheck is one batched
+Device redesign: the 50-step x ~1.2k-point collision recheck is one batched
 device call per object instead of a Python loop over steps.
 """
 

@@ -1,4 +1,4 @@
-"""SceneReplica fixed-base grasp-planning driver (TPU framework edition).
+"""SceneReplica fixed-base grasp-planning driver (this framework's edition).
 
 Pipeline parity with /root/reference/examples/pybullet_gto_planning.py:
 per scene x ordering x object: observation -> two SDF cost fields (with and
@@ -9,7 +9,7 @@ under threshold, :242-278) -> goal-set trajectory optimization (:287-295)
 -> execute, close gripper, lift/retreat, reward, JSON dump (:297-338).
 Scene-type knobs at :91-109.
 
-TPU redesign inside the same flow: the grasp collision pre-filter is ONE
+Device redesign inside the same flow: the grasp collision pre-filter is ONE
 batched device call (all grasps at once), the IK screen is ONE vmapped
 solve over the whole grasp set, and the SDF cost fields are built on
 device — the three phases the reference spends 0.5-2.5 s each on.

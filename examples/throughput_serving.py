@@ -6,9 +6,8 @@ The reference plans one object at a time, synchronously
 service, the same work is a request stream: this demo microbatches
 requests, keeps `--inflight` device calls outstanding
 (grasptrajopt_tpu.parallel.PlanStream), and reports sustained plans/s —
-on a remote/tunneled accelerator the per-call host dispatch is fully
-hidden behind device execution (docs/PERF.md round 3: +57% sustained
-throughput at the 6-iteration configuration vs synchronous dispatch).
+per-call host dispatch overlaps device execution instead of adding to
+it.
 
 Self-contained (synthetic 7-DoF arm, no assets):
     python examples/throughput_serving.py --batches 8 --batch 16

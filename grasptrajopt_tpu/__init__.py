@@ -1,11 +1,12 @@
-"""grasptrajopt_tpu — a TPU-native grasp trajectory-optimization framework.
+"""grasptrajopt_tpu — a batched, accelerator-first grasp trajectory-optimization
+framework (JAX/XLA/Pallas; runs on an NVIDIA GPU, tests on the CPU).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 IRVLUTD/GraspTrajOpt (arXiv 2403.05466): planning collision-free joint-space
 trajectories that end in a grasp, with robots represented as link-surface
 point clouds and scenes as signed-distance cost fields on voxel grids.
 
-Architecture (TPU-first, not a port):
+Architecture (accelerator-first, not a port):
   - problems are *data* (pytrees of parameters), not symbolic graphs: one
     jit-compiled solver program serves every problem instance
   - trajectories are arrays with a time axis; dynamics equality constraints
@@ -14,13 +15,14 @@ Architecture (TPU-first, not a port):
     projection
   - the Gauss-Newton KKT system is block-tridiagonal in time and solved with
     a batched block Thomas factorization under `vmap`
-  - scene SDF cost fields are built on-device with a Pallas tiled
-    min-distance kernel (replacing the reference's sklearn KD-tree),
+  - scene SDF cost fields are built on-device with a brute-force
+    min-distance reduction (a Pallas/Triton kernel on the GPU) replacing
+    the reference's sklearn KD-tree,
     and queried with *differentiable* trilinear interpolation (improving on
     the reference's zero-gradient floor-indexed lookup,
     cf. /root/reference/gto/sdf_callback.py)
   - batches of (scene x grasp-set x seed) problems scale over a
-    `jax.sharding.Mesh` via shard_map; collectives ride ICI.
+    `jax.sharding.Mesh` via shard_map; XLA hands the collectives to NCCL.
 
 Subpackages:
   spatial    SO(3)/SE(3)/quaternion ops               (ref: optas/spatialmath.py)

@@ -3,7 +3,7 @@
 The reference establishes quality exclusively through closed-loop PyBullet
 runs (SURVEY.md §4) and has no fake/mock backends, so nothing in its
 simulation layer is testable without the real physics engine. This module
-fills that slot for the TPU framework: it implements the exact pybullet API
+fills that slot for this framework: it implements the exact pybullet API
 surface used by `envs/pybullet_api.py` and `envs/scene_replica.py`
 (connect/loadURDF/joint control/link states/camera images/IK) on top of the
 framework's own first-party pieces — the URDF parser (`models/urdf.py`),

@@ -376,7 +376,7 @@ class SyntheticSceneEnv:
         A single head-height view leaves an occlusion band under the upper
         shelf board that the visibility sign test marks 'inside' — blocking
         every deep-shelf wrist posture in both planning and replay (the
-        dominant synthetic-shelf failure, docs/PERF.md). The second view
+        dominant synthetic-shelf failure, PERF.md). The second view
         looks into the gap from the opposite vertical side, the way a real
         robot would peek before reaching (the reference's fetch re-aims its
         head camera with look_at, pybullet_api.py:364-383)."""

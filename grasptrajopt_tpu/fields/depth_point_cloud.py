@@ -10,10 +10,13 @@ Behavioral parity with /root/reference/mesh_to_sdf/depth_point_cloud.py:
                (d - eps)^2 / (2 eps)              0 < d < eps
                0                                  d >= eps
 
-TPU redesign: the point set keeps the *static* (H*W) shape with a validity
-mask instead of host-side compaction, so every query is jit-compatible; the
-nearest-distance reduction is the MXU-tiled `ops.min_sqdist` instead of a
-KD-tree. Building a full ~1e5-cell cost field is one fused device program.
+Device redesign: the point set keeps the *static* (H*W) shape with a
+validity mask instead of host-side compaction, so every query is
+jit-compatible; the nearest-distance reduction is the brute-force
+`ops.min_sqdist_d2` instead of a KD-tree. Building a full ~1e5-cell cost
+field is one fused device program. The camera matmuls pin HIGHEST
+precision: a reduced-precision (TF32) product moves backprojected points
+by millimetres at workspace scale.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import jax.numpy as jnp
 
 from grasptrajopt_tpu.ops import min_sqdist_d2
 
+_HI = jax.lax.Precision.HIGHEST
+
 
 @functools.partial(jax.jit, static_argnames=())
 def backproject_depth(depth, intrinsic_matrix, camera_pose, valid_mask):
@@ -37,11 +42,11 @@ def backproject_depth(depth, intrinsic_matrix, camera_pose, valid_mask):
     x, y = jnp.meshgrid(jnp.arange(W, dtype=depth.dtype), jnp.arange(H, dtype=depth.dtype))
     ones = jnp.ones_like(x)
     pix = jnp.stack([x, y, ones], axis=-1).reshape(-1, 3)  # (H*W, 3)
-    rays = pix @ K_inv.T
+    rays = jnp.matmul(pix, K_inv.T, precision=_HI)
     pts_cam = rays * depth.reshape(-1, 1)
     R = jnp.asarray(camera_pose, depth.dtype)[:3, :3]
     t = jnp.asarray(camera_pose, depth.dtype)[:3, 3]
-    pts_world = pts_cam @ R.T + t
+    pts_world = jnp.matmul(pts_cam, R.T, precision=_HI) + t
     return pts_world, valid_mask.reshape(-1)
 
 
@@ -56,8 +61,8 @@ def camera_outside(depth, intrinsic_matrix, camera_pose, query_points):
     T_wc = jnp.asarray(camera_pose, depth.dtype)
     R = T_wc[:3, :3]
     t = T_wc[:3, 3]
-    pc = (q - t) @ R  # camera frame (R^T applied from the right)
-    proj = pc @ jnp.asarray(intrinsic_matrix, depth.dtype).T
+    pc = jnp.matmul(q - t, R, precision=_HI)  # camera frame (R^T from the right)
+    proj = jnp.matmul(pc, jnp.asarray(intrinsic_matrix, depth.dtype).T, precision=_HI)
     z = proj[:, 2]
     safe_z = jnp.where(jnp.abs(z) > 1e-12, z, 1e-12)
     u = (proj[:, 0] / safe_z).astype(jnp.int32)
@@ -91,8 +96,6 @@ def signed_distance_to_cloud(query_points, cloud_pts, cloud_mask, depth, K, cam_
     """Signed distance of queries to a (padded) cloud, camera-visibility
     sign from the depth image — the device query primitive behind
     DepthPointCloud.get_sdf, usable with a deduplicated cloud."""
-    from grasptrajopt_tpu.ops import min_sqdist_d2
-
     q = jnp.asarray(query_points)
     d = jnp.sqrt(min_sqdist_d2(q, cloud_pts, ref_mask=cloud_mask))
     outside = camera_outside(depth, K, cam_pose, q)
@@ -116,7 +119,7 @@ def build_two_cost_fields(
     field (pybullet_gto_planning.py:175-190 builds these as two separate
     KD-tree sweeps on the host).
 
-    TPU structure (docs/PERF.md round-5 fields-kernel work):
+    Structure (PERF.md, carried findings: fields):
       - the obstacle cloud (valid & ~target) is voxel-deduplicated on
         device (ops.voxel_dedup, default 1 cm — the accuracy the CPU shelf
         path already ships via field_downsample) and min-distanced once;
@@ -148,8 +151,6 @@ def build_two_cost_fields(
     t_idx = jnp.nonzero(tm, size=capacity_target, fill_value=0)[0]
     tgt_pts = pts[t_idx]
     tgt_mask = jnp.arange(capacity_target) < jnp.sum(tm)
-    from grasptrajopt_tpu.ops import min_sqdist_d2
-
     q = jnp.asarray(grid_pts)
     d2_obs = min_sqdist_d2(q, obs_pts, ref_mask=obs_mask)
     d2_tgt = min_sqdist_d2(q, tgt_pts, ref_mask=tgt_mask)
@@ -241,7 +242,7 @@ class DepthPointCloud:
         C++ multithreaded KD-tree (native/geomcore.cpp) — exact same
         semantics, ~20x faster than the brute-force reduction XLA-on-CPU
         runs for the dense field builds; traced queries and accelerator
-        backends keep the device path (ops.min_sqdist tiles onto the MXU).
+        backends keep the device path (ops.min_sqdist_d2).
         """
         is_tracer = isinstance(query_points, jax.core.Tracer)
         if host == "auto":
@@ -318,7 +319,7 @@ class DepthPointCloud:
         return self.get_sdf_cost(pts, epsilon=epsilon, w_inside=w_inside)
 
     def get_sdf_in_batches(self, query_points, batch_size: int = 1_000_000):
-        """Parity shim: batching is handled inside min_sqdist already."""
+        """Parity shim: batching is handled inside min_sqdist_d2 already."""
         return self.get_sdf(query_points)
 
 
@@ -331,7 +332,7 @@ class FusedDepthPointCloud(DepthPointCloud):
     front of its measured surface. This carves the occlusion bands a single
     camera cannot see (e.g. the underside of an upper shelf board, which a
     head-height camera marks 'inside' and thereby blocks every deep-shelf
-    approach — the dominant synthetic-shelf failure mode, docs/PERF.md).
+    approach — the dominant synthetic-shelf failure mode, PERF.md).
 
     All query methods (get_sdf / get_sdf_cost / build_cost_field) are
     inherited — they only touch points_padded / valid / is_outside.

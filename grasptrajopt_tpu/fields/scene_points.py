@@ -1,10 +1,10 @@
 """Scene point-set preparation for the direct (gather-free) obstacle path.
 
 The voxel-cost-field obstacle term costs one table gather per robot surface
-point per residual pass — latency-bound on TPU. The alternative
+point per residual pass. The alternative
 `obstacle_mode='points'` computes the eps-band cost directly from the
-distance to a voxel-downsampled scene point set via an MXU matmul with an
-in-register min (ops.min_sqdist_diff), with the sign taken from the
+exact distance to a voxel-downsampled scene point set (a chunked
+min/argmin reduction, ops.signed_distance_with_dir), with the sign taken from the
 nearest scene point's normal (the reference's 'normal' sign method with
 k=1, mesh_to_sdf/surface_point_cloud.py:32-64).
 

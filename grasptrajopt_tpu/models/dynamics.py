@@ -2,7 +2,7 @@
 
 Replaces the reference's recursive Newton-Euler implementation
 (optas/models.py:1736-1888 `rnea`, restricted there to serial
-revolute-only chains with a fixed first joint). The TPU-first formulation
+revolute-only chains with a fixed first joint). The accelerator-first formulation
 derives the same quantity from the Lagrangian with autodiff over the
 framework's own batched FK:
 

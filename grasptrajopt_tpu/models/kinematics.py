@@ -1,6 +1,6 @@
 """Kinematics compiler: URDF tree -> flat arrays -> batched FK.
 
-TPU-first redesign of the reference's per-link CasADi chain walk
+Accelerator-first redesign of the reference's per-link CasADi chain walk
 (/root/reference/optas/models.py:828-868). Instead of building one symbolic
 expression per link by walking root->link chains, we:
 
@@ -164,7 +164,7 @@ class KinematicModel:
             is_pri = (jtype == JOINT_PRISMATIC)[..., None]
             R = jnp.where(is_rev, R_rev, eye3)
             t = jnp.where(is_pri, qj[..., None] * axis, jnp.zeros_like(axis))
-            # elementwise small-matmul (VPU) — MXU tiles would be ~0.1% utilized
+            # elementwise small-matmul: 4x4 products are too small for a matrix unit
             local = matmul_small(T_fixed, rt2tr(R, t))  # (..., F, 4, 4)
             local = local.at[..., 0, :, :].set(jnp.eye(4, dtype=dtype))
 
@@ -187,11 +187,10 @@ class KinematicModel:
         COMPONENT form: twelve (..., F) arrays (r00..r22, t0..t2).
 
         Same math as `fk_fn`, but no (..., 4, 4) tensors are ever
-        materialized: XLA's TPU layouts pad trailing tiny dims to full
-        (8, 128) tiles, and the stack/concat/gather mix inside the matrix
-        formulation forces those padded layouts onto every intermediate —
-        measured at ~28 ms for a (32, 50)-batch Panda FK where the
-        component form is bandwidth-trivial. All arithmetic here is
+        materialized: tiled device layouts can pad trailing tiny dims, and
+        the stack/concat/gather mix inside the matrix formulation forces
+        those layouts onto every intermediate, where the component form
+        is bandwidth-trivial. All arithmetic here is
         elementwise over (..., F) with the doubling gathers on the last
         axis. Returns (R, t) stacked as (..., F, 3, 3) and (..., F, 3)
         only at the very end for consumers that want matrices; use

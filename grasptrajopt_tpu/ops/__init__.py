@@ -4,11 +4,11 @@ distance fields, differentiable grid interpolation.
 These replace the reference's host-side sklearn KD-tree queries
 (/root/reference/mesh_to_sdf/depth_point_cloud.py:25,57) and CasADi
 floor-indexed field lookups (gto/gto_models.py:174-201) with batched
-MXU/VPU-friendly primitives.
+device primitives.
 """
 
 from grasptrajopt_tpu.ops.nn import (
-    min_d2_batched_pallas,
+    min_d2_pallas,
     min_sqdist,
     min_sqdist_d2,
     min_sqdist_reference,
@@ -22,7 +22,7 @@ from grasptrajopt_tpu.ops.block_tridiag import block_tridiag_solve
 from grasptrajopt_tpu.ops.dedup import voxel_dedup
 
 __all__ = [
-    "min_d2_batched_pallas",
+    "min_d2_pallas",
     "min_sqdist",
     "min_sqdist_d2",
     "min_sqdist_reference",

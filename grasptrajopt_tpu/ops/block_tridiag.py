@@ -93,8 +93,8 @@ def block_tridiag_solve_cr(diag, lower, rhs):
     `block_tridiag_solve` (identical signature and semantics).
 
     The Thomas recursion above is a length-T sequential chain of tiny
-    (n, n) Cholesky solves — latency-bound on TPU (the profiler shows
-    ~22 us per 32x7x7 triangular solve, 2x47 of them back to back). Cyclic
+    (n, n) Cholesky solves — latency-bound (2x47 tiny triangular solves
+    back to back per LM iteration at T=50). Cyclic
     reduction eliminates every even-indexed block per level, so the T-step
     chain becomes ceil(log2 T) levels of BATCHED block ops: each level's
     Schur updates/solves run as one (m, n, n) Cholesky batch on device.

@@ -27,14 +27,14 @@ from jax import custom_batching
 
 @custom_batching.custom_vmap
 def packed_rows_gather(packed, offs):
-    """Row gather `packed[offs]` with a batching rule tuned for TPU.
+    """Row gather `packed[offs]` with a batching rule for per-problem tables.
 
-    Under vmap with PER-PROBLEM tables, one giant batched gather runs far
-    below the small-table rate (the (B, 2S, 8) working set is ~150 MB;
-    docs/PERF.md round-2 probe: 66 ms vs 39 ms for the same 1.9M rows), so
-    the rule lowers to `lax.map` — B sequential gathers, each against one
-    small table. With a SHARED (unbatched) table the plain flat gather is
-    already the fast path and is kept.
+    Under vmap with PER-PROBLEM tables the rule lowers to `lax.map` — B
+    sequential gathers, each against one small table, instead of one
+    batched gather over the whole (B, 2S, 8) working set (~150 MB). This
+    was tuned on the accelerator the planner was first written for and is
+    not yet measured on the GPU (ROADMAP S6). With a SHARED (unbatched)
+    table the plain flat gather is kept.
 
     NOTE: no autodiff support is needed — the gathered rows are constants
     w.r.t. positions (derivatives flow through the interpolation weights),
@@ -124,8 +124,8 @@ def pack_corners(field_flat, shape: Tuple[int, int, int]):
     """Precompute the 8 trilinear corner values per cell: (S, 8).
 
     One packed gather row replaces 8 scattered gathers in
-    `field_lookup_trilinear` — the dominant cost of the obstacle term on
-    TPU (scattered 1-float gathers are slow; one contiguous 8-float row per
+    `field_lookup_trilinear` — the dominant cost of the obstacle term
+    (scattered 1-float gathers are slow; one contiguous 8-float row per
     point vectorizes). Cells in the last slab along any axis replicate the
     boundary (matching the clamped base index of the unpacked lookup).
     """
@@ -262,9 +262,9 @@ def field_lookup_packed_soa_grad(
         rows = rows.astype(x.dtype)
     # Unpack-and-combine form. A contraction form (rows · (..., 4, 8)
     # weight tensor, 8 kept as a contracted dim to dodge the gathered-row
-    # transpose copy) was tried and is SLOWER on TPU: 53.7 vs 62.4 plans/s
-    # at bench shapes — building the weight cube costs more than the
-    # 1.3 ms/iter copy it avoids (docs/PERF.md negative results).
+    # transpose copy) was slower on the first accelerator: building the
+    # weight cube cost more than the copy it avoids (PERF.md, carried
+    # findings; not re-measured on the GPU).
     c000, c001, c010, c011, c100, c101, c110, c111 = [
         rows[..., i] for i in range(8)
     ]

@@ -2,9 +2,8 @@
 
 `jnp.linalg.cholesky` / `solve_triangular` on a (B, n, n) operand lower to
 LAPACK-style XLA custom calls. Inside the block-Thomas scan of
-`ops.block_tridiag` that means 3 custom calls PER TIME STEP — the bench
-profiler shows ~22 us apiece for 32x7x7 operands (latency, not FLOPs:
-470 calls = 10.6 ms of a 115 ms solve). For the n <= 16 blocks this
+`ops.block_tridiag` that means 3 custom calls PER TIME STEP, each paying
+dispatch latency, not FLOPs (~470 calls per solve). For the n <= 16 blocks this
 framework actually solves (panda 7, fetch 7, base 3), an UNROLLED
 factorization is a handful of (batch,)-wide elementwise ops that XLA fuses
 straight into the surrounding while-loop body — no custom-call dispatch at

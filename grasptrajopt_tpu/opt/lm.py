@@ -47,10 +47,9 @@ class LMConfig(NamedTuple):
     # evaluations (cheap for dense problems)
     alphas: Tuple[float, ...] = (1.0, 0.5, 0.25, 0.1, 0.03)
     # matmul precision for everything traced inside the solve (see
-    # opt/trajectory.py TrajectoryConfig.matmul_precision: TPU's default
-    # bf16 operand truncation moves finite-budget iterates; the dense
-    # problems here are tiny, so "highest" is free). None = platform
-    # default.
+    # opt/trajectory.py TrajectoryConfig.matmul_precision: reduced-precision
+    # f32 products move finite-budget iterates; the dense problems here are
+    # tiny, so "highest" costs little). None = platform default.
     matmul_precision: Optional[str] = "highest"
 
 

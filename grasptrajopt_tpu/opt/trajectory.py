@@ -25,7 +25,7 @@ handled by freezing the active selection per iteration through a
 functions.
 
 Performance-critical structure (the obstacle term's field gathers dominate
-on TPU): each LM iteration runs exactly TWO traced residual passes —
+the iteration): each LM iteration runs exactly TWO traced residual passes —
   1. per-step `jacfwd(..., has_aux=True)`: primal residuals AND the (R, n)
      Jacobian share one trace, so gathered field rows are fetched once and
      reused by all forward tangents;
@@ -89,16 +89,15 @@ class TrajectoryConfig(NamedTuple):
     # cyclic_reduction=True solves the block-tridiagonal system with
     # parallel-in-time cyclic reduction (ops.block_tridiag_solve_cr):
     # ceil(log2 T) levels of batched block ops instead of a 2T-step scan of
-    # tiny sequential Cholesky solves (which are latency-bound on TPU).
+    # tiny sequential Cholesky solves (latency-bound at small batches).
     cyclic_reduction: bool = False
-    # matmul precision for everything traced inside the solve. On TPU the
-    # default MXU behavior truncates f32 operands to bf16; at a finite
-    # iteration budget that precision loss steers the ITERATE, not just
-    # rounding (docs/PERF.md round 3: one bench problem converged past the
-    # 5-degree gate, err_pos floor 1.7 mm vs 1.1 mm). Every matmul in this
-    # solver is FLOP-trivial (7x7 KKT blocks, n-wide J contractions — the
-    # field gather dominates the iteration), so "highest" is effectively
-    # free. None = leave the platform default.
+    # matmul precision for everything traced inside the solve, the KKT
+    # chain included. A reduced-precision f32 product (TF32 on the GPU,
+    # which keeps ~3 decimal digits) steers the ITERATE at a finite
+    # iteration budget, not just the rounding (PERF.md, carried findings:
+    # precision). Every matmul in this solver is FLOP-trivial (7x7 KKT
+    # blocks, n-wide J contractions), so "highest" costs little (PERF.md,
+    # KKT precision). None = leave the platform default.
     matmul_precision: Optional[str] = "highest"
 
 
@@ -197,19 +196,9 @@ def make_trajectory_solver(
 
         vel_diag = w * jnp.where(jnp.arange(F) < F - 1, 2.0, 1.0).astype(dtype)
         L_off = jnp.broadcast_to(-w * eye, (F - 1, n, n))
-        kkt_inner = (
+        kkt_solve = (
             block_tridiag_solve_cr if config.cyclic_reduction else block_tridiag_solve
         )
-
-        def kkt_solve(D, L, g):
-            # exempt the KKT chain from the solver's matmul_precision
-            # scope: the step direction is damped/approximate by
-            # construction (LM re-tests it), and the 2T-step scan of tiny
-            # 7x7 ops is latency-bound — HIGHEST multiplies exactly the
-            # ops that can least afford extra passes (~5% step time,
-            # docs/PERF.md round 3) while buying nothing.
-            with jax.default_matmul_precision("default"):
-                return kkt_inner(D, L, g)
 
         def step_lin(q_t, t, step_aux, params, step_fn):
             """Primal residuals + Jacobian from ONE traced evaluation
@@ -237,8 +226,8 @@ def make_trajectory_solver(
             c = jnp.sum(r_all * r_all) + smooth_cost(Q)
             Jt = J_allT[nf:]  # (F, n, R)
             # these contractions run at config.matmul_precision (see
-            # solve_scoped): the default TPU bf16 operand truncation steers
-            # the finite-budget iterate, and they are FLOP-trivial anyway
+            # solve_scoped): reduced-precision operands steer the
+            # finite-budget iterate, and they are FLOP-trivial anyway
             H = jnp.einsum("fir,fjr->fij", Jt, Jt)  # (F, n, n)
             g = jnp.einsum("fir,fr->fi", Jt, r_all[nf:]) + smooth_grad_X(Q)
             if term is not None:

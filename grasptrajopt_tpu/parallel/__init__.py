@@ -3,9 +3,9 @@
 The reference is a single-process, single-thread program (SURVEY.md §2.3).
 This subsystem is its from-scratch scale-out story: independent
 (scene x grasp-set x seed) problems are a batch axis sharded over a
-`jax.sharding.Mesh`; XLA collectives (psum/all_gather over ICI) reduce
-metrics and gather results; `jax.distributed` extends the same program to
-multi-host slices over DCN.
+`jax.sharding.Mesh`; XLA collectives (psum/all_gather, NCCL on the GPU)
+reduce metrics and gather results; `jax.distributed` extends the same
+program to several processes.
 """
 
 from grasptrajopt_tpu.parallel.mesh import (

@@ -4,40 +4,20 @@ from __future__ import annotations
 
 from typing import Optional
 
-
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def distributed_init(coordinator: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None) -> None:
-    """Initialize the multi-host runtime (no-op on a single host).
+    """Join a multi-process runtime; a no-op for one process.
 
-    On TPU pods the arguments are auto-detected from the environment; this
-    is the DCN-side counterpart of the reference's absent NCCL/MPI layer
-    (SURVEY.md §2.3).
-
-    Call with explicit (coordinator, num_processes, process_id) for manual
-    setups; with no arguments it auto-detects from the cluster environment
-    (TPU pod metadata / JAX_COORDINATOR_ADDRESS et al.) and stays a no-op
-    on a plain single host.
+    Nothing is auto-detected: a multi-process run passes the coordinator
+    address (e.g. ``localhost:<port>``), the process count and this
+    process's id explicitly. This is the counterpart of the reference's
+    absent NCCL/MPI layer (SURVEY.md §2.3).
     """
-    if num_processes is not None:
-        if num_processes > 1:
-            jax.distributed.initialize(coordinator, num_processes, process_id)
-        return
-    import os
-
-    if coordinator is not None or any(
-        os.environ.get(k)
-        for k in (
-            "JAX_COORDINATOR_ADDRESS",
-            "COORDINATOR_ADDRESS",
-            "MEGASCALE_COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
-        )
-    ):
-        # multi-host cluster: let jax auto-detect everything not given
-        jax.distributed.initialize(coordinator_address=coordinator)
+    if num_processes is not None and num_processes > 1:
+        jax.distributed.initialize(coordinator, num_processes, process_id)
 
 
 def data_mesh(n_devices: Optional[int] = None, axis_name: str = "dp") -> Mesh:

@@ -3,7 +3,7 @@
 Pattern: a per-problem solve function (from opt/ or planning/) is vmapped
 into a per-shard batch solve, then `jax.shard_map`-ped over the data axis.
 Per-shard results stay device-resident; global metrics (mean cost,
-convergence counts) are reduced with `psum` over ICI — the framework's
+convergence counts) are reduced with `psum` — the framework's
 equivalent of the reference's absent collective layer (SURVEY.md §2.3).
 """
 

@@ -7,7 +7,7 @@ obstacle-only depth point cloud; a step with more than `threshold_points`
 points at sdf < 0 is a collision. Goal reach follows the driver's IK
 acceptance gates (pybullet_gto_planning.py:262).
 
-TPU redesign: the whole T-step replay is ONE batched FK + ONE fused
+Device redesign: the whole T-step replay is ONE batched FK + ONE fused
 min-distance query instead of the reference's per-step KD-tree loops.
 """
 

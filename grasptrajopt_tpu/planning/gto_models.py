@@ -8,7 +8,7 @@ resolution 0.05 m :45-46), point->offset maps (:174-201), plan cost
 (:204-215), 2-D occupancy grid for base planning (:219-292), standoff pose
 (:49-59).
 
-TPU redesign: surface points are pre-transformed into link frames once
+Device redesign: surface points are pre-transformed into link frames once
 (visual origin folded in), so runtime FK of all ~1.2k body points is a
 dozen batched (N,3)x(3,3) transforms off one all-frames FK call —
 `fk_surface_points` broadcasts over arbitrary batch/time axes in one jit.
@@ -66,7 +66,7 @@ class GTORobotModel(RobotModel):
         # reference is pinned to 5 cm by CPU field-build cost; here it is a
         # fidelity knob — thin-object clearance in shelf scenes needs finer
         # sampling than the 2 cm cost band allows at 5 cm voxels (the band
-        # is below the grid's Nyquist rate; docs/PERF.md shelf study).
+        # is below the grid's Nyquist rate; PERF.md, carried findings).
         self.grid_resolution = float(grid_resolution)
 
         self.surface_pc_map: Dict[str, SurfacePointCloud] = self.compute_link_surface_points()

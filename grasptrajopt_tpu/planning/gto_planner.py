@@ -15,7 +15,7 @@ Parity with /root/reference/gto/gto_planner.py:
   - warm-start ranking of IK candidates by (plan cost, travel distance)
     lexicographically, cubic-interpolated seed (:185-219; np.lexsort :212)
 
-TPU redesign: the reference REBUILDS the symbolic NLP and re-invokes Ipopt
+Device redesign: the reference REBUILDS the symbolic NLP and re-invokes Ipopt
 for every plan call (:146, :187 — SURVEY call stack 3.1's hot spot). Here
 `setup_optimization` jit-compiles one solver per (goal capacity, standoff)
 signature, goal sets are padded to that capacity with a validity mask, and
@@ -93,7 +93,7 @@ class GTOPlanner:
         # standoff). 1.0 = reference parity (gto_planner.py:84-105 implicit
         # unit weight). At deep standoffs (-0.2) the velocity regularizer of
         # the longer final approach trades against the goal term and the
-        # converged solution sits at ~5 deg rotation error (docs/PERF.md
+        # converged solution sits at ~5 deg rotation error (PERF.md
         # standoff investigation); goal_weight ~4 shifts that equilibrium
         # without touching the collision or smoothness semantics.
         self.goal_weight = float(goal_weight)
@@ -111,8 +111,7 @@ class GTOPlanner:
         # (ops.interp.field_lookup_packed_soa_grad) instead of rows inside
         # the per-step jacfwd residual. Numerically identical; the gather
         # then rides packed_rows_gather, whose vmap rule keeps PER-PROBLEM
-        # field tables on the fast sequential-small-gather path
-        # (docs/PERF.md round-2 probe: 39 ms vs 66 ms per 1.9M-row pass).
+        # field tables on the sequential-small-gather path (ROADMAP S6).
         self.field_term = field_term
         # single_pass: one fused residual/jac pass per LM iteration
         # (opt/trajectory.py TrajectoryConfig.single_pass)
@@ -136,10 +135,10 @@ class GTOPlanner:
         # rank_{t,p}_stride: warm-start RANKING fidelity — score each IK
         # candidate's interpolated seed trajectory on every rank_t-th step
         # x every rank_p-th surface point (SoA FK path) instead of the full
-        # (T, P) replay. The full ranking is the IK phase's dominant cost
-        # on TPU (24.4 of 34.7 ms/object, tools/probe_ik_phase.py); (2,2)
-        # keeps 15/16 identical seed picks with ~4e-4 full-metric cost
-        # excess on the near-tie. Ranking only picks the SEED — the solver
+        # (T, P) replay. The full ranking dominated the IK phase on the
+        # first accelerator (tools/probe_ik_phase.py); (2,2) keeps 15/16
+        # identical seed picks with ~4e-4 full-metric cost excess on the
+        # near-tie. Ranking only picks the SEED — the solver
         # still optimizes the true objective — so this is a fidelity knob
         # of a heuristic, not of the solution. Field mode only; default 1
         # (exact) for the closed-loop pipeline.
@@ -152,7 +151,7 @@ class GTOPlanner:
         # cost is goal_coherence x lower. At large synthetic goal
         # capacities (32-yaw families) the unbiased argmin can select a
         # member far from EVERY IK warm start, which a small iteration
-        # budget then cannot reach (docs/PERF.md round-5 "not
+        # budget then cannot reach (PERF.md round-5 "not
         # budget-bound" diagnosis). 0 (default) = reference parity: plain
         # masked argmin of the point-match cost (optas.mmin reduction).
         self.goal_coherence = float(goal_coherence)
@@ -166,7 +165,7 @@ class GTOPlanner:
         #   packed trilinear gathers.
         # obstacle_mode 'points': gather-free — the eps-band cost is shaped
         #   from the exact signed distance to downsampled scene point sets
-        #   (ops.signed_distance_to_set: MXU min-distance + normal sign).
+        #   (ops.signed_distance_to_set: exact min-distance + normal sign).
         self.obstacle_mode = obstacle_mode
         self.sdf_epsilon = sdf_epsilon
         self.T = int(T)

@@ -149,7 +149,7 @@ class IKSolver:
         def run_multistart(q0_opt, params, key):
             """Batched multi-start: the given seed plus random restarts within
             the (clipped) joint limits; best-cost solution wins. Ipopt-free
-            robustness the TPU way — restarts are a vmap axis, not a loop."""
+            robustness the batched way — restarts are a vmap axis, not a loop."""
             n = q0_opt.shape[0]
             extra = lo_s + jax.random.uniform(
                 key, (self.num_seeds - 1, n), dtype=dtype

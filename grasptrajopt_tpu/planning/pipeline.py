@@ -7,7 +7,7 @@ cost fields -> grasp-set collision pre-filter -> IK screen -> goal-set
 trajectory optimization. Every stage is batched on device; the simulator
 (or a real camera) only supplies the depth image and grasp candidates.
 
-Stage parity + the TPU upgrades:
+Stage parity + the device upgrades:
   - fields: DepthPointCloud.build_cost_field on the scene-bounds grid
     (driver :175-190), one fused device program per field
   - grasp filter: gripper surface points at every grasp standoff pose vs
@@ -185,7 +185,7 @@ class GraspPipeline:
 
         # goal_weight: terminal goal-row weight (1.0 = reference parity);
         # deep-standoff configs (shelf, -0.2) use ~4 to counter the
-        # rotation-error equilibrium (docs/PERF.md standoff investigation)
+        # rotation-error equilibrium (PERF.md standoff investigation)
         # planner_single_pass / planner_coarse_iterations: the bench
         # defaults (delayed-gratification LM; optional coarse-fidelity
         # obstacle phase) exposed here so closed-loop evaluation can
@@ -528,7 +528,7 @@ class GraspPipeline:
         deeper escalate_iterations budget and a BOOSTED goal weight.
         A clean 2-3 cm miss that survives extra iterations is a
         goal-vs-obstacle equilibrium (the deep-standoff investigation,
-        docs/PERF.md round 2): the eps-band cost around a tight grasp
+        PERF.md round 2): the eps-band cost around a tight grasp
         balances the goal term short of the pose. Boosting the terminal
         rows moves the equilibrium onto the goal; the replay gate_key
         only ever ADOPTS the re-solve if it scores collision-free and

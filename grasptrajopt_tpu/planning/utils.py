@@ -10,7 +10,6 @@ import os
 from typing import Optional
 
 import numpy as np
-import yaml
 
 import jax.numpy as jnp
 
@@ -30,6 +29,8 @@ def get_data_dir() -> str:
 
 def load_yaml(file_path):
     if isinstance(file_path, str):
+        import yaml  # optional dependency: only config files need it
+
         with open(file_path) as f:
             return yaml.load(f, Loader=yaml.Loader)
     return file_path

@@ -156,10 +156,10 @@ def matmul_small(A, B):
     """Batched small-matrix product via broadcast-multiply + reduce.
 
     For (..., m, k) @ (..., k, n) with tiny m/k/n (4x4 transform
-    composition, 3x3 rotations), TPU's MXU pads each operand to full
-    systolic tiles — sub-percent utilization. Expanding to
-    (..., m, k, n) elementwise products and reducing over k keeps the
-    work on the VPU at full lane occupancy instead.
+    composition, 3x3 rotations), a matrix unit pads each operand to full
+    tiles — sub-percent utilization. Expanding to (..., m, k, n)
+    elementwise products and reducing over k keeps the work in fused
+    elementwise code instead.
     """
     return jnp.sum(A[..., :, :, None] * B[..., None, :, :], axis=-2)
 
@@ -168,8 +168,8 @@ def transform_points(T, points):
     """Apply (..., 4, 4) transforms to (..., N, 3) points -> (..., N, 3).
 
     Elementwise formulation (see matmul_small): p @ R^T is a K=3
-    contraction the MXU handles terribly; broadcast-multiply + reduce
-    keeps it on the VPU.
+    contraction a matrix unit handles terribly; broadcast-multiply +
+    reduce keeps it elementwise (and exact: no reduced-precision matmul).
     """
     R, t = tr2rt(T)
     out = jnp.sum(points[..., :, None, :] * R[..., None, :, :], axis=-1)

@@ -2,7 +2,8 @@
 
 Provides a GTO robot built entirely from an embedded URDF with primitive
 (box/cylinder) visual geometry — no external mesh or data files — so the
-driver's compile checks and the multi-chip dry run work in any environment.
+compile checks, the chip smoke test and the multi-device dry run work in
+any environment.
 The synthetic arm is a 7-DoF serial chain with a 2-finger gripper whose
 kinematic structure mirrors the Panda's role in the planners (link_ee ==
 link_gripper == 'hand').
@@ -16,7 +17,7 @@ import jax.numpy as jnp
 
 from grasptrajopt_tpu.planning.gto_models import GTORobotModel
 
-SYNTH_ARM_URDF = """
+_ARM_URDF_TEMPLATE = """
 <robot name="synth7">
   <link name="base_link">
     <visual><geometry><cylinder radius="0.06" length="0.1"/></geometry></visual>
@@ -27,10 +28,7 @@ SYNTH_ARM_URDF = """
   <link name="l4"><visual><geometry><box size="0.06 0.06 0.2"/></geometry></visual></link>
   <link name="l5"><visual><geometry><box size="0.05 0.05 0.15"/></geometry></visual></link>
   <link name="l6"><visual><geometry><box size="0.05 0.05 0.1"/></geometry></visual></link>
-  <link name="hand"><visual><geometry><box size="0.08 0.1 0.05"/></geometry></visual></link>
-  <link name="finger_l"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
-  <link name="finger_r"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
-  <joint name="j1" type="revolute">
+{gripper_links}  <joint name="j1" type="revolute">
     <parent link="base_link"/><child link="l1"/>
     <origin xyz="0 0 0.1" rpy="0 0 0"/><axis xyz="0 0 1"/>
     <limit lower="-2.9" upper="2.9" velocity="2.1"/>
@@ -65,6 +63,16 @@ SYNTH_ARM_URDF = """
     <origin xyz="0 0 0.1" rpy="0 0 0"/><axis xyz="0 0 1"/>
     <limit lower="-2.9" upper="2.9" velocity="2.6"/>
   </joint>
+{gripper_joints}</robot>
+"""
+
+# the hand and its two fingers: shared by the arm and the standalone gripper
+_GRIPPER_LINKS = """\
+  <link name="hand"><visual><geometry><box size="0.08 0.1 0.05"/></geometry></visual></link>
+  <link name="finger_l"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
+  <link name="finger_r"><visual><geometry><box size="0.015 0.02 0.06"/></geometry></visual></link>
+"""
+_GRIPPER_JOINTS = """\
   <joint name="finger_joint_l" type="prismatic">
     <parent link="hand"/><child link="finger_l"/>
     <origin xyz="0 0.03 0.05" rpy="0 0 0"/><axis xyz="0 1 0"/>
@@ -75,8 +83,17 @@ SYNTH_ARM_URDF = """
     <origin xyz="0 -0.03 0.05" rpy="0 0 0"/><axis xyz="0 -1 0"/>
     <limit lower="0" upper="0.04" velocity="0.2"/>
   </joint>
-</robot>
 """
+
+SYNTH_ARM_URDF = _ARM_URDF_TEMPLATE.format(
+    gripper_links=_GRIPPER_LINKS, gripper_joints=_GRIPPER_JOINTS
+)
+# the gripper alone (root link 'hand'), as the grasp collision pre-filter
+# of GraspPipeline takes it (`gripper_model`)
+SYNTH_GRIPPER_URDF = (
+    '<robot name="synth7_gripper">\n' + _GRIPPER_LINKS + _GRIPPER_JOINTS + "</robot>\n"
+)
+SYNTH_GRIPPER_OPEN = (0.04, 0.04)
 
 SYNTH_COLLISION_LINKS = [
     "base_link", "l1", "l2", "l3", "l4", "l5", "l6", "hand", "finger_l", "finger_r",
@@ -99,6 +116,18 @@ def make_synthetic_gto_robot(dtype=jnp.float32, points_per_link: int = 100) -> G
     )
     robot.setup_workspace_field(arm_len=1.1, arm_height=0.2)
     return robot
+
+
+def make_synthetic_gripper(dtype=jnp.float32, points_per_link: int = 100) -> GTORobotModel:
+    """The synthetic arm's hand and fingers as a standalone model, in the
+    form GraspPipeline takes as `gripper_model` (surface points in the
+    hand frame at the finger offsets SYNTH_GRIPPER_OPEN)."""
+    return GTORobotModel(
+        model_dir="",
+        urdf_string=SYNTH_GRIPPER_URDF,
+        points_per_link=points_per_link,
+        dtype=dtype,
+    )
 
 
 def make_synthetic_goal(seed: int = 0) -> np.ndarray:

@@ -15,7 +15,6 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
-import yaml
 
 
 class Manager(abc.ABC):
@@ -38,6 +37,8 @@ class Manager(abc.ABC):
     def _load_configuration(filename: Optional[str]) -> Dict:
         if not filename:
             return {}
+        import yaml  # optional dependency: only config files need it
+
         with open(filename, "rb") as f:
             return yaml.load(f, Loader=yaml.FullLoader)
 

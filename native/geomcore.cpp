@@ -1,6 +1,6 @@
 // geomcore: native host-side geometry core for grasptrajopt_tpu.
 //
-// The TPU framework keeps all hot compute on device (XLA/Pallas); this
+// The framework keeps all hot compute on device (XLA/Pallas); this
 // library accelerates the host-side runtime around it — the work the
 // reference delegates to third-party native engines (trimesh's loaders,
 // sklearn's KD-tree; SURVEY.md §2.2):

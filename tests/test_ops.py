@@ -16,7 +16,14 @@ from grasptrajopt_tpu.ops import (
     points_to_offsets,
 )
 from grasptrajopt_tpu.ops.block_tridiag import block_tridiag_matvec
-from grasptrajopt_tpu.ops.nn import min_sqdist_pallas
+from grasptrajopt_tpu.ops.nn import (
+    _nearest_impl,
+    min_d2_pallas,
+    min_d2_plain,
+    min_sqdist_d2,
+    signed_distance_to_set,
+    signed_distance_with_dir,
+)
 
 RNG = np.random.default_rng(0)
 
@@ -48,40 +55,94 @@ class TestMinSqdist:
         np.testing.assert_array_equal(np.asarray(ia), np.asarray(ib))
 
     def test_pallas_kernel_interpret_mode(self):
-        # Pallas TPU kernels run in interpret mode on CPU via this flag.
-        from jax.experimental.pallas import tpu as pltpu
-
+        """The Triton field-build kernel, interpreted on the CPU: masks,
+        M and N that are not tile multiples, against cKDTree."""
         q = RNG.normal(size=(100, 3)).astype(np.float32)
         r = RNG.normal(size=(300, 3)).astype(np.float32)
-        with pltpu.force_tpu_interpret_mode():
-            d2, idx = min_sqdist_pallas(jnp.asarray(q), jnp.asarray(r), tm=64, tn=128)
-        tree = cKDTree(r)
-        want_d, want_i = tree.query(q)
-        np.testing.assert_allclose(np.sqrt(np.asarray(d2)), want_d, atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(idx), want_i)
+        mask = RNG.uniform(size=300) > 0.2
+        d2 = min_d2_pallas(jnp.asarray(q), jnp.asarray(r), jnp.asarray(mask),
+                           tm=32, tn=64, interpret=True)
+        assert d2.shape == (100,) and d2.dtype == jnp.float32
+        want_d, _ = cKDTree(r[mask]).query(q)
+        np.testing.assert_allclose(np.sqrt(np.asarray(d2)), want_d, atol=1e-6)
 
     def test_bcast_batched_kernel_interpret_mode(self):
-        """min_d2_batched_pallas (the VPU broadcast field-build kernel):
-        batched clouds + validity masks against the KD-tree oracle."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from grasptrajopt_tpu.ops import min_d2_batched_pallas
-        from grasptrajopt_tpu.ops.nn import _pack_query8, _pack_refT
-
-        B, M, N = 3, 100, 300
+        """vmap over clouds (the field-build shape: shared grid queries,
+        one masked cloud per object) against the dense reference."""
+        B, M, N = 3, 70, 130
         q = RNG.normal(size=(M, 3)).astype(np.float32)
         r = RNG.normal(size=(B, N, 3)).astype(np.float32)
         mask = RNG.uniform(size=(B, N)) > 0.2
         mask[:, 0] = True  # at least one valid point per cloud
-        q8 = _pack_query8(jnp.asarray(q), tm=64)
-        rT = _pack_refT(jnp.asarray(r), jnp.asarray(mask), tn=128)
-        with pltpu.force_tpu_interpret_mode():
-            d2 = min_d2_batched_pallas(q8, rT, tm=64, tn=128)
+        d2 = jax.vmap(
+            lambda rr, mm: min_d2_pallas(jnp.asarray(q), rr, mm, tm=32, tn=32, interpret=True)
+        )(jnp.asarray(r), jnp.asarray(mask))
+        assert d2.shape == (B, M)
         for b in range(B):
-            want_d, _ = cKDTree(r[b][mask[b]]).query(q)
-            np.testing.assert_allclose(
-                np.sqrt(np.asarray(d2[b, :M])), want_d, atol=1e-4
-            )
+            want, _ = min_sqdist_reference(jnp.asarray(q), jnp.asarray(r[b]), jnp.asarray(mask[b]))
+            np.testing.assert_allclose(np.asarray(d2[b]), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+    @pytest.mark.parametrize("M,N,tm,tn", [(1, 1, 32, 32), (33, 65, 32, 32), (64, 64, 64, 64), (5, 200, 16, 128)])
+    def test_kernel_wrapper_padding(self, M, N, tm, tn):
+        """Padding in the wrapper: exact tile multiples, one past, and a
+        single point; padded queries are trimmed and padded references
+        never win."""
+        q = RNG.uniform(-1, 1, size=(M, 3)).astype(np.float32)
+        r = RNG.uniform(-1, 1, size=(N, 3)).astype(np.float32) + 5.0
+        d2 = min_d2_pallas(jnp.asarray(q), jnp.asarray(r), tm=tm, tn=tn, interpret=True)
+        want, _ = min_sqdist_reference(jnp.asarray(q), jnp.asarray(r))
+        assert d2.shape == (M,)
+        np.testing.assert_allclose(np.asarray(d2), np.asarray(want), rtol=1e-6)
+
+    def test_kernel_all_masked_is_inf(self):
+        q = RNG.normal(size=(10, 3)).astype(np.float32)
+        r = RNG.normal(size=(40, 3)).astype(np.float32)
+        d2 = min_d2_pallas(jnp.asarray(q), jnp.asarray(r), jnp.zeros(40, bool),
+                           tm=16, tn=16, interpret=True)
+        assert np.all(np.isinf(np.asarray(d2)))
+        plain = min_d2_plain(jnp.asarray(q), jnp.asarray(r), jnp.zeros(40, bool))
+        assert np.all(np.isinf(np.asarray(plain)))
+
+    def test_plain_path_near_surface_is_exact(self):
+        """The broadcast-subtract form keeps distances exact where the
+        matmul form |q|^2 + |p|^2 - 2 q.p cancels: queries 1e-4 m from
+        points at workspace coordinates (~1 m)."""
+        r = RNG.uniform(0.5, 1.5, size=(256, 3)).astype(np.float32)
+        offs = RNG.normal(size=(256, 3))
+        offs *= 1e-4 / np.linalg.norm(offs, axis=1, keepdims=True)
+        q = (r.astype(np.float64) + offs).astype(np.float32)
+        d2 = min_d2_plain(jnp.asarray(q), jnp.asarray(r), chunk=64)
+        want, _ = cKDTree(r.astype(np.float64)).query(q.astype(np.float64))
+        np.testing.assert_allclose(np.sqrt(np.asarray(d2)), want, atol=1e-7)
+
+    def test_platform_dependent_picks_plain_on_cpu(self):
+        """min_sqdist_d2 compiled for the CPU holds no Triton call and equals
+        the plain path; lowered for CUDA it holds the Triton kernel."""
+        q = jnp.asarray(RNG.normal(size=(50, 3)).astype(np.float32))
+        r = jnp.asarray(RNG.normal(size=(80, 3)).astype(np.float32))
+        m = jnp.asarray(RNG.uniform(size=80) > 0.3)
+        f = jax.jit(min_sqdist_d2)
+        assert "triton" not in f.lower(q, r, m).as_text().lower()
+        np.testing.assert_array_equal(np.asarray(f(q, r, m)), np.asarray(min_d2_plain(q, r, m)))
+        cuda_text = f.trace(q, r, m).lower(lowering_platforms=("cuda",)).as_text()
+        assert "triton" in cuda_text.lower()
+
+    @pytest.mark.gpu
+    def test_kernel_on_card_matches_plain(self, gpu_device):
+        """The Triton kernel compiled for the card (no interpreter), under
+        vmap over masked clouds, against the plain reduction."""
+        q = jax.device_put(RNG.uniform(-1, 1, size=(5000, 3)).astype(np.float32), gpu_device)
+        r = jax.device_put(RNG.uniform(-1, 1, size=(4, 3000, 3)).astype(np.float32), gpu_device)
+        m = jax.device_put(RNG.uniform(size=(4, 3000)) > 0.2, gpu_device)
+        got = jax.jit(jax.vmap(min_sqdist_d2, in_axes=(None, 0, 0)))(q, r, m)
+        want = jax.vmap(min_d2_plain, in_axes=(None, 0, 0))(q, r, m)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6)
+
+    def test_min_sqdist_d2_dtype_follows_query(self):
+        q = jnp.asarray(RNG.normal(size=(20, 3)))  # float64 under x64
+        r = jnp.asarray(RNG.normal(size=(30, 3)))
+        d2 = min_sqdist_d2(q, r)
+        assert d2.dtype == q.dtype
 
     def test_voxel_dedup(self):
         import jax
@@ -140,6 +201,63 @@ class TestMinSqdist:
         d2 = min_sqdist_d2(jnp.asarray(q), jnp.asarray(r), ref_mask=jnp.asarray(mask))
         want_d, _ = cKDTree(r[mask]).query(q)
         np.testing.assert_allclose(np.sqrt(np.asarray(d2)), want_d, atol=1e-9)
+
+
+class TestNearestPointNormal:
+    """Points-mode path: chunked min + argmin, then a gather of the nearest
+    point and normal (ops.nn._nearest_impl / signed_distance_with_dir)."""
+
+    def _scene(self, k=120):
+        r = RNG.uniform(-1, 1, size=(k, 3))
+        n = RNG.normal(size=(k, 3))
+        return r, n / np.linalg.norm(n, axis=1, keepdims=True)
+
+    def test_nearest_point_and_normal_match_kdtree(self):
+        r, n = self._scene()
+        q = RNG.uniform(-1.2, 1.2, size=(4, 25, 3))
+        d2, p, nm = _nearest_impl(jnp.asarray(q), jnp.asarray(r), jnp.asarray(n), chunk=32)
+        assert d2.shape == (4, 25) and p.shape == nm.shape == (4, 25, 3)
+        want_d, want_i = cKDTree(r).query(q.reshape(-1, 3))
+        np.testing.assert_allclose(np.sqrt(np.asarray(d2)).reshape(-1), want_d, atol=1e-9)
+        np.testing.assert_array_equal(np.asarray(p).reshape(-1, 3), r[want_i])
+        np.testing.assert_array_equal(np.asarray(nm).reshape(-1, 3), n[want_i])
+
+    def test_ties_take_the_lowest_index(self):
+        r = np.array([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0]])
+        n = np.eye(3)
+        d2, p, nm = _nearest_impl(jnp.zeros((1, 3)), jnp.asarray(r), jnp.asarray(n))
+        assert float(d2[0]) == 1.0
+        np.testing.assert_array_equal(np.asarray(p[0]), r[0])
+        np.testing.assert_array_equal(np.asarray(nm[0]), n[0])
+
+    def test_signs_inside_and_outside_a_sheet(self):
+        """A sampled sheet at z=0 with +z normals: just below it within the
+        footprint is inside; below but laterally far away is outside."""
+        xs, ys = np.meshgrid(np.linspace(0, 1, 11), np.linspace(0, 1, 11))
+        sheet = np.c_[xs.ravel(), ys.ravel(), np.zeros(xs.size)]
+        nrm = np.tile([0.0, 0.0, 1.0], (sheet.shape[0], 1))
+        q = np.array([[0.5, 0.5, 0.03], [0.5, 0.5, -0.02], [1.5, 0.5, -0.02]])
+        sd, dirs = signed_distance_with_dir(jnp.asarray(q), jnp.asarray(sheet), jnp.asarray(nrm))
+        sd = np.asarray(sd)
+        assert sd[0] > 0 and sd[1] < 0 and sd[2] > 0
+        np.testing.assert_allclose(np.abs(sd[:2]), [0.03, 0.02], atol=1e-12)
+        np.testing.assert_allclose(np.linalg.norm(np.asarray(dirs), axis=1), 1.0, atol=1e-9)
+
+    def test_custom_jvp_matches_finite_differences(self):
+        r, n = self._scene(60)
+        q = jnp.asarray(RNG.uniform(-1, 1, size=(8, 3)))
+
+        def f(p):
+            return jnp.sum(signed_distance_to_set(p, jnp.asarray(r), jnp.asarray(n)))
+
+        g = np.asarray(jax.jacfwd(f)(q))
+        eps = 1e-6
+        for i in range(q.shape[0]):
+            for k in range(3):
+                dq = np.zeros(q.shape)
+                dq[i, k] = eps
+                fd = (float(f(q + dq)) - float(f(q - dq))) / (2 * eps)
+                np.testing.assert_allclose(g[i, k], fd, atol=1e-5)
 
 
 class TestFieldLookup:

@@ -63,7 +63,7 @@ class TestSharding:
 
 
 class TestShardedPlannerRealistic:
-    """VERDICT weak-6: multi-chip evidence at realistic shapes — the real
+    """Multi-device evidence at realistic shapes — the real
     panda model (reference assets), full T=50 horizon, the bench's 72k-cell
     workspace cost field, per-problem fields, dp-sharded over the 8-device
     CPU mesh and checked against the unsharded vmap batch."""

@@ -514,3 +514,44 @@ class TestGraspPipeline:
             )
             err = np.linalg.norm(RTs[i, :3, 3] - T_end[:3, 3])
             assert err < 0.02, f"goal {i} err {err}"
+
+
+class TestSyntheticPipeline:
+    """plan_object with no assets: the in-repo synthetic arm and its
+    gripper (grasptrajopt_tpu/testing.py) on a rendered tabletop scene."""
+
+    def test_plan_object_reaches_plan_stage(self):
+        from grasptrajopt_tpu.envs.synthetic import SyntheticSceneEnv
+        from grasptrajopt_tpu.testing import (
+            SYNTH_DEFAULT_POSE,
+            SYNTH_GRIPPER_OPEN,
+            SYNTH_LINK_EE,
+            SYNTH_LINK_GRIPPER,
+            make_synthetic_gripper,
+            make_synthetic_gto_robot,
+        )
+
+        robot = make_synthetic_gto_robot(points_per_link=10)
+        gripper = make_synthetic_gripper(points_per_link=20)
+        pts, _ = gripper.compute_fk_surface_points(np.asarray(SYNTH_GRIPPER_OPEN))
+        assert pts.shape == (60, 3)
+        env = SyntheticSceneEnv(scene_type="tabletop", n_objects=1, width=64, height=64)
+        meta = env.setup_scene(10)
+        env.reset_scene()
+        name = meta["nearest_first"].split(",")[0]
+        depth, ids, cam_pose, K = env.get_observation()
+        pipeline = GraspPipeline(
+            robot, gripper, SYNTH_LINK_EE, SYNTH_LINK_GRIPPER,
+            axis_standoff="z", gripper_open_offsets=SYNTH_GRIPPER_OPEN,
+            goal_capacity=16, grid=robot.grid, ik_capacity=16,
+            planner_iterations=3, planner_single_pass=True,
+            planner_coarse_iterations=2, planner_final_trust=True,
+            ik_iterations=24, rescue=False, escalate=False,
+        )
+        res = pipeline.plan_object(
+            SYNTH_DEFAULT_POSE, depth, K, cam_pose, ids == env._placed(name).uid,
+            env.grasps_world(name), base_position=env.base_position,
+        )
+        assert res.stage == "ok", res
+        assert res.plan.shape == (robot.ndof, 50) and np.isfinite(res.plan).all()
+        assert res.n_ik_found >= 1

@@ -237,7 +237,7 @@ class TestGTOPlanner:
     def test_goal_weight_tightens_deep_standoff(self, panda):
         """goal_weight > 1 must shift the deep-standoff (-0.2) equilibrium:
         the terminal rotation error at goal_weight=4 comes out below the
-        parity-default solution's (docs/PERF.md standoff investigation)."""
+        parity-default solution's (PERF.md standoff investigation)."""
         from grasptrajopt_tpu.spatial import r2quat
         from grasptrajopt_tpu.spatial.quaternion import qangle_deg
 

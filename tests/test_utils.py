@@ -110,37 +110,45 @@ class TestRetiming:
 
 
 class TestAttribution:
-    """utils/attribution.py: trace histogram buckets + gather roofline."""
+    """utils/attribution.py: device busy share, op buckets, peak table."""
 
-    def test_bytes_from_long_name(self):
-        from grasptrajopt_tpu.utils.attribution import _bytes_from_long_name
+    def test_busy_share_merges_overlaps(self):
+        from grasptrajopt_tpu.utils.attribution import busy_share
 
-        ln = "%fusion.31 = f32[32,57600,8]{2,1,0} fusion(f32[145152,8]{1,0} %p0), kind=kLoop"
-        assert _bytes_from_long_name(ln) == 32 * 57600 * 8 * 4
-        ln2 = "%gather.2 = bf16[100,8]{1,0} gather(bf16[500,8]{1,0} %t, s32[100,1]{1,0} %i)"
-        assert _bytes_from_long_name(ln2) == 100 * 8 * 2
+        # [0,10] and [5,20] overlap -> 20 busy; [30,40] after a 10 gap;
+        # window 0..40 -> idle 10/40 (values in ns)
+        out = busy_share([(0, 10e6), (5e6, 20e6), (30e6, 40e6)])
+        assert out == {"window_ms": 40.0, "busy_ms": 30.0, "idle_share": 0.25}
 
     def test_bucketing(self):
         from grasptrajopt_tpu.utils.attribution import bucket_device_time
 
         events = {
-            "fusion.1": {"us": 600.0, "count": 3, "long_name": "%fusion.1 = f32[10]{0} fusion(...) gather("},
-            "dot.5": {"us": 300.0, "count": 2, "long_name": "%dot.5 = f32[8,8]{1,0} dot(...)"},
-            "exp.1": {"us": 100.0, "count": 1, "long_name": "%exp.1 = f32[4]{0} exponential(...)"},
+            "loop_gather_fusion": {"us": 500.0, "count": 3, "hlo_op": "gather.4"},
+            "gemm_fusion": {"us": 300.0, "count": 2, "hlo_op": "dot.5"},
+            "min_d2": {"us": 100.0, "count": 1, "hlo_op": "custom-call.2"},
+            "loop_exponential_fusion": {"us": 100.0, "count": 1, "hlo_op": "fusion.9"},
+            None: [(0, 1)],
         }
         b = bucket_device_time(events)
-        assert b["gather"] == 0.6 and b["matmul"] == 0.3 and b["other"] == 0.1
+        assert b["gather"] == 0.5 and b["matmul"] == 0.3
+        assert b["pallas_kernel"] == 0.1 and b["other"] == 0.1
         assert b["total_device_ms"] == 1.0
 
     def test_profile_step_on_cpu_backend(self):
-        """profile_step must run end-to-end on the CPU backend and always
-        return the attribution keys (the bucket dict may be empty when the
-        backend emits no annotated device lanes)."""
+        """A trace with no GPU device events cannot attribute device time:
+        profile_step raises instead of returning empty buckets."""
         import jax
         import jax.numpy as jnp
 
         from grasptrajopt_tpu.utils.attribution import profile_step
 
         f = jax.jit(lambda: (jnp.arange(512.0) ** 2).sum())
-        out = profile_step(f)
-        assert "device_time_frac" in out and "top_ops" in out
+        with pytest.raises(RuntimeError, match="no device events"):
+            profile_step(f, device_kind=jax.devices()[0].device_kind)
+
+    def test_unknown_device_gets_no_peak_share(self):
+        from grasptrajopt_tpu.utils.attribution import HBM_PEAK_BYTES_PER_S
+
+        assert HBM_PEAK_BYTES_PER_S["NVIDIA H100 80GB HBM3"] == 3.35e12
+        assert "cpu" not in HBM_PEAK_BYTES_PER_S

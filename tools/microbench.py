@@ -1,6 +1,8 @@
 """Micro-benchmarks of the trajectory solver's per-iteration components on
-the local accelerator: FK, packed field gathers, residual pass, Jacobian
-pass, block-tridiagonal solve. Directs kernel-level optimization."""
+the GPU: FK, packed field gathers, residual pass, Jacobian pass,
+block-tridiagonal solve. Needs the robot assets under GTO_DATA_DIR.
+Component timings mis-attribute cost; confirm with a trace of the real
+program (tools/trace_report.py)."""
 
 import os
 import sys
@@ -12,12 +14,6 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-
-try:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-except Exception:
-    pass
 
 from grasptrajopt_tpu.ops import block_tridiag_solve
 from grasptrajopt_tpu.planning.gto_models import GTORobotModel
@@ -38,6 +34,10 @@ def timeit(name, fn, *args, reps=5):
 
 
 def main():
+    from grasptrajopt_tpu.utils.device import enable_compile_cache, require_gpu
+
+    require_gpu()
+    enable_compile_cache()
     B = int(os.environ.get("MB_BATCH", "32"))
     T = 50
     data_dir = os.environ.get("GTO_DATA_DIR", "/root/reference/data")

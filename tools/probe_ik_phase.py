@@ -1,7 +1,6 @@
 """Attribute and optimize the e2e IK phase (bench_e2e.py phase 2).
 
-Round-5 e2e result: the IK phase is 34.7 ms/object — 60% of the
-end-to-end pipeline. Two sub-costs inside the single phase_ik program:
+Two sub-costs inside the single phase_ik program:
 
   (a) the multistart projected-LM screen: B*cap = 512 problems x
       num_seeds=8 x 50 LM iterations of the point-matching residual
@@ -11,7 +10,7 @@ end-to-end pipeline. Two sub-costs inside the single phase_ik program:
       field lookups over all P=1200 surface points — 16*32*50*1200 =
       30.7M nearest lookups + the same count of FK point transforms
 
-Hypothesis from the gather-floor numbers (docs/PERF.md): (b) dominates.
+On the accelerator the planner was first written for, (b) dominated.
 This probe times both standalone plus the candidate cuts:
 
   solve variants: iterations {50, 24, 16} x seeds {8, 4} (subset)
@@ -20,7 +19,8 @@ This probe times both standalone plus the candidate cuts:
       T-stride 4 + point-stride 4 (16x fewer queries), with
       best-seed agreement vs the full ranking as the quality proxy
 
-Run ON TPU (one process): `python tools/probe_ik_phase.py`.
+Run on the GPU (one process, needs the robot assets under GTO_DATA_DIR):
+`python tools/probe_ik_phase.py`.
 """
 
 import json
@@ -35,10 +35,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
     import jax.numpy as jnp
+
+    from grasptrajopt_tpu.utils.device import enable_compile_cache, require_gpu
+
+    require_gpu()
+    enable_compile_cache()
 
     from grasptrajopt_tpu.envs.synthetic import SyntheticSceneEnv
     from grasptrajopt_tpu.fields import DepthPointCloud
